@@ -24,17 +24,17 @@ def code(text):
 
 
 md("""
-# xarray_parcel on TPU — demo walkthrough
+# xarray_parcel on an accelerator — demo walkthrough
 
-A tour of the TPU-native convection-diagnostics framework, mirroring the
+A tour of the JAX convection-diagnostics framework, mirroring the
 reference's `parcel_functions_demo.ipynb` flow: per-function calls on a
 single sounding, a plotted parcel ascent, the one-call gridded pipeline,
 and (beyond the reference) exact gradients through the whole solve.
 
 The compute path is pure JAX — everything here jit-compiles unchanged for
-CPU, GPU, or TPU, and the production path additionally fuses the CAPE/CIN
-solve into a single Pallas TPU kernel (`xarray_parcel_tpu.fused`).  See
-`docs/performance.md` for measured rates and `examples/multichip.py` for
+CPU or GPU, and the production path additionally fuses the CAPE/CIN
+solve into a single column program (`xarray_parcel_tpu.fused`).  See
+`docs/performance.md` for the performance model and `examples/multichip.py` for
 the sharded multi-chip version of the pipeline.
 """)
 
@@ -46,9 +46,9 @@ sys.path.insert(0, os.path.join(sys.path[1], 'examples') if os.path.basename(sys
 import jax
 # The demo pins the CPU backend + fp64 so the printed values are exactly
 # the documented (and MetPy-golden) numbers on any machine.  Delete these
-# lines to run on an attached TPU (fp32 production envelope:
+# lines to run on an attached GPU (fp32 production envelope:
 # docs/performance.md).  The 8 virtual CPU devices stand in for an
-# 8-chip slice in the mesh-sharding section below.
+# multi-card host in the mesh-sharding section below.
 jax.config.update('jax_platforms', 'cpu')
 jax.config.update('jax_enable_x64', True)
 jax.config.update('jax_num_cpu_devices', 8)
@@ -306,8 +306,8 @@ shape here: the serial SciPy oracle is timed on a handful of columns
 (then extended at its measured per-column rate — it is exactly linear),
 the jit-compiled vector solve is timed end to end at each size.  This
 cell runs on the demo's pinned CPU backend, so the vector numbers are a
-*floor* — the fused TPU path clears 10⁷ columns/s per v5e chip
-(`docs/performance.md`).
+*floor* — device rates, measured on the H100, are in `PERF.md`
+(cost model: `docs/performance.md`).
 """)
 
 code("""
@@ -377,7 +377,7 @@ ax2.annotate(f'{sp[-1]:,.0f}x at {sizes[-1]:,} columns',
              (sizes[-1], sp[-1]), xytext=(-8, -14),
              textcoords='offset points', ha='right', color=TEXT,
              fontsize=9)
-ax2.set_title('Speedup (single CPU core; TPU is ~100x further)',
+ax2.set_title('Speedup (single CPU core)',
               color=TEXT, loc='left')
 plt.tight_layout(); plt.show()
 """)
@@ -386,12 +386,12 @@ md("""
 ## Scaling out: the pipeline on a device mesh
 
 The reference opens its demo by starting a two-worker dask
-`LocalCluster` (its cell 3); the TPU-native equivalent is a
+`LocalCluster` (its cell 3); the JAX equivalent is a
 `jax.sharding.Mesh` — columns are independent, so the only parallel
 decision is sharding the batch axis, and XLA inserts no collectives.
 This notebook's pinned CPU backend exposes 8 virtual devices (first
-cell), standing in for an 8-chip slice; on real hardware the same two
-lines shard over the pod.  Any grid shape works — a mesh that does not
+cell), standing in for a multi-card host; on real hardware the same two
+lines shard over the cards.  Any grid shape works — a mesh that does not
 divide the batch pads, computes sharded, and slices the padding off.
 """)
 
@@ -559,9 +559,9 @@ md("""
 - `examples/environment_eval.ipynb` — the regression-drift evaluation
   walkthrough (archive vs archive, root-caused).
 - `examples/xarray_demo.py` — the full per-function Dataset surface.
-- `bench.py`, `docs/performance.md`, `docs/scaling.md` — measured TPU
-  rates (the fused pipeline clears 10⁷ CAPE/CIN columns per second per
-  v5e chip net of harness overhead).
+- `chip_smoke.py`, `bench.py`, `PERF.md` — the card's measured
+  rates (every number beside the card's name and power limit;
+  `docs/performance.md` has the cost model).
 - `docs/migration.md` — function-by-function mapping from the reference.
 """)
 

@@ -85,23 +85,56 @@ def make_inputs(ny=6, nx=6, L=40, seed=20260816):
     }
 
 
+def load_archive():
+    """(inputs, expected outputs) of the committed archive."""
+    with np.load(ARCHIVE) as f:
+        return ({k[3:]: f[k] for k in f.files if k.startswith('in_')},
+                {k[4:]: f[k] for k in f.files if k.startswith('out_')})
+
+
+def assert_matches_archive(got, expect):
+    """The regression tolerance: the same variable set, exact booleans
+    and NaN patterns, values within ``atol=1e-4*scale, rtol=1e-6``."""
+    assert set(got) == set(expect), (
+        f'variable set changed: +{set(got) - set(expect)} '
+        f'-{set(expect) - set(got)}')
+    for k in sorted(expect):
+        a, b = got[k], expect[k]
+        if a.dtype == bool:
+            np.testing.assert_array_equal(a, b, err_msg=f'drift in {k}')
+            continue
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b),
+                                      err_msg=f'NaN-pattern drift in {k}')
+        scale = max(1.0, float(np.nanmax(np.abs(b))) * 1e-6)
+        np.testing.assert_allclose(
+            np.nan_to_num(a), np.nan_to_num(b), atol=1e-4 * scale, rtol=1e-6,
+            err_msg=f'value drift in {k}')
+
+
 def compute(inputs):
+    """Every archived output for ``inputs``, in fp64 on JAX's default
+    backend (the CPU when run as a script)."""
     import jax
-    jax.config.update('jax_platforms', 'cpu')
     jax.config.update('jax_enable_x64', True)
     import jax.numpy as jnp
     from xarray_parcel_tpu import adiabat, pipeline
 
     tables = adiabat.load_moist_adiabat_lookups()
     dat = {k: jnp.asarray(v) for k, v in inputs.items()}
-    out = pipeline.conv_properties(dat, tables=tables)
-    out.update(pipeline.storm_proxies(out))
-    # The reduced pipeline is archived too (distinct code path; keys get a
-    # 'min.' namespace so they never collide with conv_properties keys).
-    out.update({f'min.{k}': v
-                for k, v in pipeline.min_conv_properties(
-                    dat, tables=tables).items()})
-    return {k: np.asarray(v) for k, v in out.items()}
+
+    @jax.jit
+    def run(dat, tables):
+        out = pipeline.conv_properties(dat, tables=tables)
+        out.update(pipeline.storm_proxies(out))
+        # The reduced pipeline is archived too (distinct code path; keys
+        # get a 'min.' namespace so they never collide with conv_properties
+        # keys).
+        out.update({f'min.{k}': v
+                    for k, v in pipeline.min_conv_properties(
+                        dat, tables=tables).items()})
+        return out
+
+    return {k: np.asarray(v) for k, v in run(dat, tables).items()}
 
 
 def main():
@@ -143,4 +176,5 @@ def main():
 
 
 if __name__ == '__main__':
+    os.environ.setdefault('JAX_PLATFORMS', 'cpu')
     main()

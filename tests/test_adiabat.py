@@ -220,7 +220,7 @@ def test_stale_wide_cache_narrow_request_persists_default(tmp_path,
     # A stale (48-wide) f64 cache serving an f32 request must NOT be
     # overwritten with narrowed tables, but the narrowed rebuild must be
     # persisted to the dtype-keyed default path — otherwise every f32
-    # process rebuilds the spectra forever (a remote compile on TPU).
+    # process rebuilds the spectra forever.
     import os
     monkeypatch.setattr(adiabat, '_CACHE_DIR', str(tmp_path))
     monkeypatch.setattr(adiabat, '_DEFAULT_TABLES', None)

@@ -3,7 +3,7 @@
 Pins that lax.map-chunked execution is numerically identical to running the
 program per chunk and concatenating — the execution strategy that lets one
 dispatch carry batches whose whole-batch compile would blow XLA's scheduler
-(the TPU analogue of the reference's dask graph fusion over chunks,
+(the JAX analogue of the reference's dask graph fusion over chunks,
 reference: modules/parcel_functions.py:561-579)."""
 
 import jax

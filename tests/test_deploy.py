@@ -190,28 +190,9 @@ def test_table_dtype_follows_artifact(tables, tmp_path):
                       {k: np.asarray(v) for k, v in ref.items()})
 
 
-def test_custom_callable_pallas_flag(tables):
-    # uses_pallas on a custom callable overrides the name heuristic in
-    # both directions.
-    def nice_name(dat, tables=None):
-        return pipeline.min_conv_properties(dat, tables=tables)
-    nice_name.uses_pallas = True
-    with pytest.raises(ValueError, match='XLA-only'):
-        deploy.export_pipeline(nice_name, batch=None, polymorphic=True,
-                               levels=24, dtype=DTYPE, tables=tables)
-
-    def my_fused_alias(dat, tables=None):
-        return pipeline.min_conv_properties(dat, tables=tables)
-    my_fused_alias.uses_pallas = False
-    dep = deploy.export_pipeline(my_fused_alias, batch=None,
-                                 polymorphic=True, levels=24, dtype=DTYPE,
-                                 tables=tables)
-    assert dep.meta['polymorphic'] is True
-
-
 def test_fused_pipeline_exports(tables, tmp_path):
-    # Off-TPU the fused kernel exports its interpret-mode XLA expansion —
-    # the artifact must still reproduce the direct call bit-for-bit.
+    # The fused pipelines are plain XLA: the artifact must reproduce the
+    # direct call.
     path = tmp_path / 'fused.xpz'
     deploy.export_pipeline('min_conv_properties_fused', batch=8, levels=24,
                            dtype=DTYPE, tables=tables, path=path)
@@ -262,9 +243,30 @@ def test_sharded_export(tables, tmp_path):
 
 
 def test_polymorphic_fused_raises(tables):
-    with pytest.raises(ValueError, match='polymorphic batch is XLA-only'):
+    # A symbolic batch cannot carry a fixed sharding, fused or not.
+    from xarray_parcel_tpu import parallel
+    with pytest.raises(ValueError, match='do not compose'):
         deploy.export_pipeline('conv_properties_fused', batch=None,
-                               polymorphic=True, tables=tables)
+                               polymorphic=True, tables=tables,
+                               mesh=parallel.make_mesh())
+
+
+def test_polymorphic_fused_roundtrip(tables, tmp_path):
+    # The fused pipelines have no fixed grid any more: a symbolic-batch
+    # export saves, reloads and serves any batch like the XLA pipelines.
+    path = tmp_path / 'fused_poly.xpz'
+    deploy.export_pipeline('min_conv_properties_fused', batch=None,
+                           levels=24, dtype=DTYPE, tables=tables,
+                           polymorphic=True, path=path)
+    loaded = deploy.load(path)
+    assert loaded.meta['polymorphic'] is True
+    assert loaded.meta['batch'] is None
+    for B in (5, 13):
+        dat = make_dat(B, seed=B + 50)
+        got = loaded(dat, tables=tables)
+        assert all(np.asarray(v).shape[0] == B for v in got.values())
+        assert_tree_equal(got, pipeline.min_conv_properties_fused(
+            dat, tables=tables))
 
 
 def test_load_rejects_foreign_zip(tmp_path):
@@ -623,23 +625,47 @@ def test_cli_export_f64_tables_from_default_process(tables, tmp_path):
             assert d['coeffs'].dtype == np.float64
 
 
-def test_compilation_cache_fills(tmp_path):
-    # conftest.py enables the suite-wide cache — restore BOTH settings
-    # afterwards so the rest of the suite keeps its persistent cache.
+@pytest.fixture
+def restore_cache(monkeypatch):
+    """conftest.py enables the suite-wide cache — restore BOTH settings
+    afterwards so the rest of the suite keeps its persistent cache."""
     prev_dir = jax.config.jax_compilation_cache_dir
     prev_min = jax.config.jax_persistent_cache_min_compile_time_secs
+    yield
+    monkeypatch.delenv('JAX_COMPILATION_CACHE_DIR', raising=False)
+    if prev_dir is not None:
+        deploy.enable_compilation_cache(prev_dir, prev_min)
+    else:
+        jax.config.update('jax_compilation_cache_dir', None)
+        jax.config.update('jax_persistent_cache_min_compile_time_secs',
+                          prev_min)
+
+
+def test_compilation_cache_fills(tmp_path, monkeypatch, restore_cache):
+    monkeypatch.delenv('JAX_COMPILATION_CACHE_DIR', raising=False)
     cache = tmp_path / 'xla_cache'
     deploy.enable_compilation_cache(cache)
-    try:
-        jax.jit(lambda x: x * 2.0 + 3.0)(jnp.arange(7.0)).block_until_ready()
-        assert any(cache.iterdir()), 'persistent cache stayed empty'
-    finally:
-        if prev_dir is not None:
-            deploy.enable_compilation_cache(prev_dir, prev_min)
-        else:
-            jax.config.update('jax_compilation_cache_dir', None)
-            jax.config.update('jax_persistent_cache_min_compile_time_secs',
-                              prev_min)
+    jax.jit(lambda x: x * 2.0 + 3.0)(jnp.arange(7.0)).block_until_ready()
+    assert any(cache.iterdir()), 'persistent cache stayed empty'
+
+
+@pytest.mark.parametrize('env_set', [True, False])
+def test_compilation_cache_dir_choice(tmp_path, monkeypatch, restore_cache,
+                                      env_set):
+    # JAX_COMPILATION_CACHE_DIR, when set, wins over any directory the
+    # caller names; unset, the default is the fixed .xla_cache/ in the
+    # checkout — never a temporary or per-process path.
+    env_dir = str(tmp_path / 'from_env')
+    if env_set:
+        monkeypatch.setenv('JAX_COMPILATION_CACHE_DIR', env_dir)
+    else:
+        monkeypatch.delenv('JAX_COMPILATION_CACHE_DIR', raising=False)
+    got = deploy.enable_compilation_cache(
+        tmp_path / 'explicit' if env_set else None)
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = env_dir if env_set else os.path.join(checkout, '.xla_cache')
+    assert got == want == deploy.enable_compilation_cache()
+    assert jax.config.jax_compilation_cache_dir == want
 
 
 def test_export_f64_requires_x64(tables):

@@ -2,8 +2,8 @@
 
 The reference actually runs its parallelism on a multi-worker dask
 LocalCluster (reference: parcel_functions_demo.ipynb cell 3); the
-TPU-native analogue is ``jax.distributed`` processes joined into one
-global device mesh (a pod slice).  This test spawns a coordinator and a
+JAX analogue is ``jax.distributed`` processes joined into one
+global device mesh.  This test spawns a coordinator and a
 second process (4 virtual CPU devices each → an 8-device global mesh
 spanning both), runs the full sharded pipeline through
 ``parallel.distributed_init`` + ``make_mesh`` + ``shard_batch``, and

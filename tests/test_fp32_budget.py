@@ -1,9 +1,9 @@
-"""fp32 error budget: the TPU production dtype vs the fp64 reference path.
+"""fp32 error budget: the production dtype vs the fp64 reference path.
 
-The bench target (BASELINE.json) demands throughput at bounded relative
-error; TPU v5e compute is fp32 (fp64 is emulated/slow), so this test pins
-the fp32 error envelope of the full CAPE solve against the fp64 path on the
-same convective grid used by the serial-oracle integration tests.
+Production runs in fp32 for throughput at bounded relative error
+(BASELINE.md's accuracy row), so this test pins the fp32 error envelope of
+the full CAPE solve against the fp64 path on the same convective grid used
+by the serial-oracle integration tests.
 """
 
 import jax

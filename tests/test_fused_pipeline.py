@@ -1,4 +1,4 @@
-"""Fused-pipeline variant vs the modular pipeline (interpret mode on CPU)."""
+"""Fused-pipeline variant vs the modular pipeline."""
 
 import jax.numpy as jnp
 import numpy as np

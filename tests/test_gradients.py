@@ -82,15 +82,15 @@ def test_grad_through_parcel_variants(tables, sounding):
 
 
 def test_grad_through_fused_kernel(tables, sounding):
-    # The Pallas production kernel is differentiable: custom_vjp whose
-    # backward is the VJP of the identical column program in XLA.
+    # The fused production solve is differentiable end to end: plain jnp
+    # under jit, so reverse mode needs no custom rule.
     from xarray_parcel_tpu import fused
     levels, temps, dews = sounding
     lv, tp, dw = levels[None], temps[None], dews[None]
 
     def cape_of(t0):
         res, _ = fused.fused_surface_cape_cin(
-            lv, tp.at[0, 0].set(t0), dw, tables=tables, block_columns=8)
+            lv, tp.at[0, 0].set(t0), dw, tables=tables)
         return res['cape'][0]
 
     g = jax.grad(cape_of)(temps[0])

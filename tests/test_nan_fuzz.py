@@ -1,10 +1,10 @@
-"""Adversarial NaN-pattern fuzz: fused Pallas kernel vs XLA path.
+"""Adversarial NaN-pattern fuzz: fused column program vs modular XLA path.
 
 The reference's NaN contract (NaN = missing, preserved through every op)
 must hold identically on both execution paths for arbitrary NaN patterns:
 leading-NaN padding, interior poisoned levels, all-NaN columns, NaN parcel
-states.  Any divergence is a semantics fork between the kernel and the
-library — exactly the bug class this suite exists to catch.
+states.  Any divergence is a semantics fork between the fused solve and
+the library — exactly the bug class this suite exists to catch.
 """
 
 import jax.numpy as jnp

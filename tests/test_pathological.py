@@ -16,7 +16,7 @@ modules/parcel_functions.py:1951):
   - near-duplicate pressure runs (strictly decreasing by ~1e-3 hPa, the
     duplicate-aware interpolation regime of parcel_functions.py:1758)
 
-Contracts checked: the fused Pallas path and the modular XLA path agree
+Contracts checked: the fused path and the modular XLA path agree
 bit-for-bit on NaN patterns and to fp tolerance on values (the two paths
 share ``fused._column_program`` — any divergence is a semantics fork);
 CAPE is non-negative and CIN non-positive under the default

@@ -310,10 +310,10 @@ def test_scalar_diagnostics_vs_serial(sweep):
 
 
 def test_fused_matches_modular_on_adversarial_grids(sweep):
-    """The fused (Pallas column program) and modular XLA pipelines share
-    one column program by construction; pin that the invariant holds on
-    the ADVERSARIAL grid classes too — identical NaN/bool patterns and
-    f64 agreement at machine precision (interpret mode on CPU)."""
+    """The fused and modular XLA pipelines share one set of column ops
+    by construction; pin that the invariant holds on the ADVERSARIAL grid
+    classes too — identical NaN/bool patterns and f64 agreement at
+    machine precision."""
     case, p, vec, ser, _, _ = sweep
     # Rebuild the fixture's Dataset inputs for this case.
     seed = 400 + CASES.index(case)

@@ -13,36 +13,21 @@ import os
 import numpy as np
 import pytest
 
-from make_regression_archive import ARCHIVE, DRIFT, compute, make_inputs
+from make_regression_archive import (ARCHIVE, DRIFT, assert_matches_archive,
+                                    compute, load_archive, make_inputs)
 
 
 @pytest.mark.skipif(not os.path.exists(ARCHIVE),
                     reason='archive not generated')
 def test_conv_properties_regression():
-    with np.load(ARCHIVE) as f:
-        inputs = {k[3:]: f[k] for k in f.files if k.startswith('in_')}
-        expect = {k[4:]: f[k] for k in f.files if k.startswith('out_')}
+    inputs, expect = load_archive()
 
     fresh_inputs = make_inputs()
     for k, v in fresh_inputs.items():
         np.testing.assert_array_equal(
             v, inputs[k], err_msg=f'input generator drifted: {k}')
 
-    got = compute(inputs)
-    assert set(got) == set(expect), (
-        f'variable set changed: +{set(got) - set(expect)} '
-        f'-{set(expect) - set(got)}')
-    for k in sorted(expect):
-        a, b = got[k], expect[k]
-        if a.dtype == bool:
-            np.testing.assert_array_equal(a, b, err_msg=f'drift in {k}')
-            continue
-        np.testing.assert_array_equal(np.isnan(a), np.isnan(b),
-                                      err_msg=f'NaN-pattern drift in {k}')
-        scale = max(1.0, float(np.nanmax(np.abs(b))) * 1e-6)
-        np.testing.assert_allclose(
-            np.nan_to_num(a), np.nan_to_num(b), atol=1e-4 * scale, rtol=1e-6,
-            err_msg=f'value drift in {k}')
+    assert_matches_archive(compute(inputs), expect)
 
 
 @pytest.mark.skipif(not os.path.exists(ARCHIVE),

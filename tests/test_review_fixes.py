@@ -6,9 +6,9 @@ Each test pins a specific reviewed-and-fixed behavior:
    must build the set in log space (it used to build linear x and compare
    it against log-pressure windows — silent unit crossing).
 2. The first-level parcel==environment rule is ulp-tolerant: the fused path
-   computes the two tracks with different compilers (XLA pre-pass vs
-   Mosaic), so exact float equality silently disabled the ignore-first-level
-   rule on TPU.
+   computes the two tracks in different fusions (per-parcel pre-pass vs
+   column program), so exact float equality could silently disable the
+   ignore-first-level rule.
 3. ``mixed_parcel`` anchors at the first VALID level, not slot 0: a NaN
    bottom slot used to yield an all-NaN parcel and (under ``grow=True``)
    flood the whole column.

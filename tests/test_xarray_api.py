@@ -635,7 +635,7 @@ def test_description_override_lands_on_renamed_key(dat_dew):
 def test_fieldset_is_a_pytree():
     """API outputs must feed straight back into jit/sharding/sync: a
     FieldSet traverses as a dict pytree (leaf FieldSets would make jit
-    raise and utils.sync skip the completion-forcing device read)."""
+    raise and utils.sync skip waiting for the device)."""
     import jax
     import jax.numpy as jnp
     from xarray_parcel_tpu.fieldset import FieldSet

@@ -1,11 +1,11 @@
-"""xarray_parcel_tpu — TPU-native atmospheric parcel-theory framework.
+"""xarray_parcel_tpu — accelerator-native parcel-theory framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
+A from-scratch JAX/XLA rebuild of the capability surface of
 traupach/xarray_parcel: parcel lifting (dry/moist adiabats), LCL/LFC/EL,
 CAPE/CIN (surface-based, mixed-layer, most-unstable) with virtual-temperature
 correction, lifted index, DCI, wet-bulb temperature, freezing/melting levels,
 wind shear, SHIP and storm proxies — vectorised over every column of a grid
-and sharded over a TPU mesh.
+and sharded over a device mesh.
 
 Data model: plain jax arrays, batch dims leading, the vertical level axis
 last; NaN marks missing data; pressure in hPa, temperature in K, mixing ratio

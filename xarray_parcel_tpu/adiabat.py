@@ -11,7 +11,7 @@ This replaces three reference components at once:
 * the table consumer ``moist_lapse`` (reference: :525-607), whose hot inner
   loop was a numba gufunc ``np.interp`` over the gathered curve.
 
-TPU-first redesign:
+Accelerator-first redesign:
   * the curves are generated on device by a ``lax.scan`` RK4 integrator in
     log-pressure (replacing the failed Euler path in
     reference: modules/moist_lapse_analytic.py), on a statically refined grid
@@ -185,10 +185,10 @@ def build_lookup(curves):
 
 
 # Spectral curve representation: PIECEWISE Chebyshev coefficients of
-# T(ln p) per curve.  Evaluating a blended coefficient row on the VPU
-# replaces per-level random gathers from the 126 MB curve table with one
-# contiguous ~170 B row gather per column — the decisive TPU optimisation
-# for the profile hot path.
+# T(ln p) per curve.  Evaluating a blended coefficient row as vector
+# arithmetic replaces per-level random gathers from the 126 MB curve table
+# with one contiguous ~170 B row gather per column — the decisive
+# optimisation for the profile hot path.
 #
 # Why piecewise: the curves' global Chebyshev convergence is slow
 # (~0.80/term, basis-independent — ln p, Exner and theta-factored bases
@@ -267,14 +267,14 @@ def build_spectral(dtype=jnp.float32, seg_k=SEG_K, n_substeps=64):
 
 def _eval_spectral(coeffs, pressure, log_pressure=None, axis=-1):
     """Piecewise-Clenshaw evaluation of per-column segment-Chebyshev
-    coefficients (…, N_SEG*seg_k) at per-level pressures (…, L) — pure VPU
-    arithmetic (each term: one select per interior boundary to pick the
-    element's segment coefficient, plus the usual mul/add/sub), fuses
-    under XLA and lowers in Mosaic (float-operand selects only).
+    coefficients (…, N_SEG*seg_k) at per-level pressures (…, L) — pure
+    elementwise arithmetic (each term: one select per interior boundary to
+    pick the element's segment coefficient, plus the usual mul/add/sub)
+    that XLA fuses.
     ``log_pressure``: optional precomputed ``log(pressure)``.
-    ``axis``: level axis of ``pressure``; with ``axis == 0`` (the fused
-    kernel's columns-on-lanes layout) ``coeffs`` is (K, …batch) and
-    ``pressure`` (L, …batch), and coefficient k broadcasts natively."""
+    ``axis``: level axis of ``pressure``; with ``axis == 0`` (level-major
+    arrays) ``coeffs`` is (K, …batch) and ``pressure`` (L, …batch), and
+    coefficient k broadcasts natively."""
     lnp = log_pressure if log_pressure is not None else jnp.log(pressure)
     if axis == -1:
         coef = lambda k: coeffs[..., k:k + 1]
@@ -287,8 +287,7 @@ def _eval_spectral(coeffs, pressure, log_pressure=None, axis=-1):
 
     # Segment membership masks (N_SEG - 1 compares) and the per-element
     # affine map to the segment's [-1, 1].  Constant divisors folded to
-    # multiplies at trace time (Mosaic does not canonicalise division,
-    # and VPU divide is multi-cycle).
+    # multiplies at trace time (a divide costs several multiplies).
     in_low = [lnp < _SEG_LNP[s + 1] for s in range(N_SEG - 1)]
 
     def select_seg(values):
@@ -523,8 +522,7 @@ def load_moist_adiabat_lookups(cache_path=None, regenerate=False,
                             arrays['coeffs'].shape[-1] != N_COEF)
             _DEFAULT_TABLES = AdiabatTables._from_arrays(arrays,
                                                          dtype=desired)
-            # Persist the rebuilt representation so later processes (and
-            # the TPU bench, where a rebuild costs a remote compile) load
+            # Persist the rebuilt representation so later processes load
             # it directly: a same-dtype managed cache is refreshed in
             # place; a WIDER stored cache serving a narrower request must
             # never be overwritten with narrowed tables — the narrowed
@@ -590,10 +588,9 @@ def curve_index_integrate(parcel_pressure, parcel_temperature,
     integrating the pseudoadiabat ODE from (p, T) back up to 1100 hPa:
     fidx = (T_start - 173 K) / 0.01 K.  This replaces the reference's 15.7M-
     cell (pressure, temperature) -> index lookup table in the hot path: four
-    random scalar gathers per column (catastrophically slow on TPU — measured
-    ~120 ms/2^20 columns, ~75% of the whole CAPE solve) become ~100 VPU
-    flops per column (~1 ms), and the result is *more* accurate than any
-    table interpolation.  Parcel states live near 1000 hPa, so the backward
+    random scalar gathers per column become ~100 elementwise flops per
+    column, and the result is *more* accurate than any table
+    interpolation.  Parcel states live near 1000 hPa, so the backward
     leg is short (|dln p| ~ 0.1) and RK4 with fixed substeps is exact to
     fp32: 12 substeps sit within 3.6e-4 index units (3.6e-6 K) of a
     192-substep run over the full envelope (450-1090 hPa, 210-315 K) —

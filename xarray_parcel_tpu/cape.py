@@ -1,6 +1,6 @@
 """LFC/EL solver and CAPE/CIN integration.
 
-TPU-native equivalents of the reference's convection solvers
+Vectorised equivalents of the reference's convection solvers
 (reference: modules/parcel_functions.py:1066-1515).  All selection logic is
 expressed as NaN-aware masked reductions over the fixed-length crossing set,
 reproducing the reference's rules exactly:
@@ -47,8 +47,7 @@ def lfc_el(pressure, parcel_temperature, temperature, lcl_pressure,
     log space — same order, same NaN pattern, zero per-level transcendentals
     — and only the two scalar outputs are exponentiated.
 
-    ``axis``: level axis, -1 (default) or 0 (the fused kernel's
-    columns-on-lanes layout).
+    ``axis``: level axis, -1 (default) or 0 (level-major arrays).
     """
     ex = expander(axis)
     p = jnp.asarray(pressure)
@@ -61,8 +60,8 @@ def lfc_el(pressure, parcel_temperature, temperature, lcl_pressure,
     if intersections_in_log:
         # Work entirely in log-pressure: log is monotone, so every order
         # comparison below is unchanged; outputs are exp'd at the end.
-        # Both logs accept precomputed values: the fused kernel already
-        # holds them, and Mosaic does not CSE a duplicate log trace.
+        # Both logs accept precomputed values: the fused solve already
+        # holds them, so no duplicate per-level log is traced.
         pw = (log_pressure if log_pressure is not None else
               safe_log(p))
         lclw = (jnp.asarray(log_lcl_pressure)
@@ -87,10 +86,10 @@ def lfc_el(pressure, parcel_temperature, temperature, lcl_pressure,
     # "First level" means the first level with a valid pressure: columns may
     # carry a leading-NaN prefix (levels below the launched parcel, masked by
     # the parcel-subsetting wrappers instead of compacted away — the
-    # reference shifts these out, reference :1552-1553, which on TPU would
+    # reference shifts these out, reference :1552-1553, which here would
     # cost a per-column shift network; an index offset is free).
-    # ``first_valid`` optionally supplies the index (argmax does not lower
-    # inside Pallas kernels; the fused path precomputes it in XLA).
+    # ``first_valid`` optionally supplies the index (the fused path
+    # computes it once and shares it with the LCL splice).
     if first_valid is None:
         first_valid = jnp.argmax(notnan(p), axis=axis)
     k0 = ex(jnp.asarray(first_valid).astype(jnp.int32))
@@ -104,9 +103,10 @@ def lfc_el(pressure, parcel_temperature, temperature, lcl_pressure,
     t0 = nanmax(t, where=at_k0, axis=axis)
     pt0 = nanmax(pt, where=at_k0, axis=axis)
     # Ulp-scaled equality (the reference compares exactly, :1117-1120): the
-    # fused path computes the parcel's first-level track partly in the XLA
-    # pre-pass while the environment's comes from in-kernel Mosaic ops, so
-    # "the same value" can differ by a few ulps between the two compilers.
+    # fused path computes the parcel's first-level track partly in the
+    # per-parcel pre-pass while the environment's comes from the column
+    # program, so "the same value" can differ by a few ulps between the
+    # two fusions.
     # 8 ulps is ~3e-4 K in fp32 production and ~5e-13 K in the f64 test
     # mode (i.e. effectively the reference's exact equality there); NaN
     # first levels compare unequal either way.
@@ -145,7 +145,7 @@ def lfc_el(pressure, parcel_temperature, temperature, lcl_pressure,
     lfc_missing = jnp.isnan(nanmax(inc_x, axis=axis))
     above = pw < ex(lclw)
     # (pt > t is False for NaN pairs, so plain & matches the reference's
-    # where().any(); boolean select ops do not lower inside Pallas.)
+    # where().any() without a boolean select.)
     pos_parcel = jnp.any(above & (pt > t), axis=axis)
     no_lfc_pos_parcel = pos_parcel & lfc_missing
 

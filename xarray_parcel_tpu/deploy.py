@@ -3,19 +3,19 @@
 The reference has no serving story — every session re-builds and
 re-schedules its lazy dask graph before any data moves (reference:
 modules/parcel_functions.py:561-579 re-chunks per call; the demo notebook
-re-runs the full pipeline per session).  The TPU equivalent of that cost
+re-runs the full pipeline per session).  The JAX equivalent of that cost
 is concrete: every distinct XLA program pays Python tracing + lowering +
-backend compilation before its first batch (tens of seconds on a
-remote-attached chip).  This module removes all three from the serving
-process:
+backend compilation before its first batch (tens of seconds for a whole
+pipeline).  This module removes all three from the serving process:
 
 - :func:`export_pipeline` AOT-traces and lowers a pipeline to a
   serialized StableHLO artifact (zip of the ``jax.export`` blob + JSON
   metadata).  Every registry pipeline reads ONLY the ~2-5 MB spectral
   coefficients at runtime (the 300 MB curves/lookup arrays are build-time
-  inputs: the fused kernel evaluates piecewise-Chebyshev rows,
-  ``fused.py:445``, and curve indexing integrates the ODE backwards,
-  ``adiabat.curve_index_integrate``), so by default the export is *slim*:
+  inputs: the fused solve evaluates piecewise-Chebyshev rows
+  (``adiabat.blend_coeff_rows``), and curve indexing integrates the ODE
+  backwards, ``adiabat.curve_index_integrate``), so by default the
+  export is *slim*:
   the coefficients are embedded in the artifact and the serving process
   needs NO table cache, NO table build, and no ``tables=`` argument at
   all — the zip is the whole deployment.  A pipeline that genuinely
@@ -29,21 +29,19 @@ process:
   (NaN for floats — the pipelines' NaN contract turns padded rows into
   NaN outputs), run chunk-by-chunk, and slice back (same contract as
   ``parallel.chunked``).  ``polymorphic=True`` artifacts embed a symbolic
-  batch dimension instead and run any size directly (XLA pipelines only —
-  the Pallas grid needs a concrete batch).
+  batch dimension instead and run any size directly.
 - :func:`enable_compilation_cache` turns on JAX's persistent compile
   cache, so even the backend-compile step is paid once per machine
   rather than once per process.
 
-Export on the platform family you serve on (the artifact records its
-lowering platforms): the fused pipelines lower to the Mosaic TPU kernel
-when exported from a TPU-attached process and to the interpret-mode XLA
-expansion elsewhere.  Pass ``platforms=('cpu', 'tpu')`` for a
-multi-platform XLA artifact.
+An artifact serves on the platforms it was lowered for (recorded in its
+metadata; by default the exporting process's backend).  Pass
+``platforms=('cpu', 'cuda')`` for a multi-platform artifact.
 """
 
 import io
 import json
+import os
 import zipfile
 
 import numpy as np
@@ -81,13 +79,6 @@ PIPELINES = {
     'conv_properties_fused_with_proxies':
         _with_proxies(pipeline.conv_properties_fused),
 }
-
-#: Registry pipelines that lower through the Pallas kernel (and therefore
-#: need a concrete batch — no polymorphic export).  Custom callables can
-#: declare themselves with a ``uses_pallas`` attribute; without one, a
-#: ``_fused`` name is treated as Pallas-backed.
-_FUSED_PIPELINES = {'conv_properties_fused', 'min_conv_properties_fused',
-                    'conv_properties_fused_with_proxies'}
 
 
 def input_spec(batch, levels=90, wind_levels=None, dtype=jnp.float32):
@@ -165,10 +156,10 @@ def export_pipeline(name, batch, levels=90, wind_levels=None,
 
     ``batch`` is the exported static batch size; a fixed-batch artifact
     still serves any grid (see :class:`Deployed`).  ``polymorphic=True``
-    exports a symbolic batch dimension instead — supported by the XLA
-    pipelines only.  ``mesh`` exports the SPMD program instead: the batch
-    dim sharded over the mesh (``parallel.batch_spec`` layout), tables
-    replicated — one artifact drives a whole slice; serving needs a mesh
+    exports a symbolic batch dimension instead.  ``mesh`` exports the
+    SPMD program instead: the batch dim sharded over the mesh
+    (``parallel.batch_spec`` layout), tables replicated — one artifact
+    drives every card of the mesh; serving needs a mesh
     of the same device count (see :meth:`Deployed.__call__`).  ``kwargs``
     are closed over (they become part of the compiled program, e.g.
     ``ignore_nans=True``).  ``tables`` defaults to the cached table
@@ -186,15 +177,6 @@ def export_pipeline(name, batch, levels=90, wind_levels=None,
     fn = PIPELINES[name] if isinstance(name, str) else name
     fn_name = name if isinstance(name, str) else getattr(
         name, '__name__', 'custom')
-    uses_pallas = (fn_name in _FUSED_PIPELINES if isinstance(name, str)
-                   else bool(getattr(fn, 'uses_pallas',
-                                     '_fused' in fn_name)))
-    if polymorphic and uses_pallas:
-        raise ValueError(
-            'polymorphic batch is XLA-only: the fused pipelines fix the '
-            'Pallas grid at trace time — export a fixed batch instead '
-            '(Deployed pads/chunks any grid onto it); for a custom '
-            'callable, set fn.uses_pallas explicitly')
     if polymorphic and mesh is not None:
         raise ValueError('polymorphic batch and mesh sharding do not '
                          'compose — export a fixed sharded batch')
@@ -548,9 +530,9 @@ class Deployed:
                     for k, (g, w) in sorted(wrong.items())))
         # Coerce float dtypes like the CLI and xarray_api.serve do, so
         # all three surfaces accept default-dtype numpy inputs.  Cast on
-        # the host: an eager device astype would compile a program per
-        # call on a remote backend.  Matching dtypes (incl. device
-        # arrays) pass through untouched.
+        # the host: an eager device astype would dispatch a program per
+        # input.  Matching dtypes (incl. device arrays) pass through
+        # untouched.
         want = np.dtype(self.meta.get('dtype', 'float32'))
 
         def _coerce(v):
@@ -678,9 +660,8 @@ def _cli_export(args):
             jax.config.update('jax_enable_x64', True)
         # Host-backed tables: export only reads shapes/dtypes (and a host
         # copy of coeffs for slim), so never device-place the ~200 MB
-        # curves/lookup (_from_arrays would, via jnp.asarray — minutes
-        # over a slow link).  Stale/missing coefficients rebuild exactly
-        # as _from_arrays does.
+        # curves/lookup (_from_arrays would, via jnp.asarray).
+        # Stale/missing coefficients rebuild exactly as _from_arrays does.
         coeffs = arrays.get('coeffs')
         if coeffs is not None and np.shape(coeffs)[-1] != adiabat.N_COEF:
             coeffs = None
@@ -715,15 +696,14 @@ def _cli_export(args):
         polymorphic=args.polymorphic,
         platforms=args.platforms.split(',') if args.platforms else None,
         slim=slim, path=args.output)
-    import os
     print(f'wrote {args.output} ({os.path.getsize(args.output):,} bytes, '
           f"slim={dep.meta['slim']}, platforms={dep.meta['platforms']})")
     return 0
 
 
 def _cli_serve(args):
-    if args.cache:
-        enable_compilation_cache(args.cache)
+    if args.cache is not None:
+        enable_compilation_cache(args.cache or None)
     dep = load(args.artifact)
     if any(np.dtype(d).itemsize == 8 for d in
            [dep.meta.get('dtype', 'float32')]
@@ -808,7 +788,7 @@ def main(argv=None):
     pe.add_argument('--dtype', default='float32')
     pe.add_argument('--polymorphic', action='store_true')
     pe.add_argument('--platforms', default=None,
-                    help="comma-separated, e.g. 'cpu,tpu'")
+                    help="comma-separated, e.g. 'cpu,cuda'")
     pe.add_argument('--slim', default='auto',
                     choices=('auto', 'true', 'false'))
     pe.add_argument('--tables', default=None,
@@ -828,8 +808,11 @@ def main(argv=None):
     ps.add_argument('-o', '--output', required=True, help='.npz to write')
     ps.add_argument('--tables', default=None,
                     help='table .npz (full-table artifacts only)')
-    ps.add_argument('--cache', default=None,
-                    help='persistent compile-cache directory')
+    ps.add_argument('--cache', nargs='?', const='', default=None,
+                    metavar='DIR',
+                    help='turn on the persistent compile cache: '
+                         '$JAX_COMPILATION_CACHE_DIR when set, else DIR, '
+                         'else .xla_cache/ in the checkout')
     ps.add_argument('--mesh', default=None,
                     help="serving mesh shape for a mesh-exported artifact, "
                          "e.g. '8' or '4x2' (matches the exported axis "
@@ -844,13 +827,26 @@ def main(argv=None):
     return args.run(args)
 
 
-def enable_compilation_cache(directory, min_compile_time_secs=0.0):
-    """Turn on JAX's persistent compilation cache at ``directory``.
+#: The cache directory used when neither ``JAX_COMPILATION_CACHE_DIR`` nor
+#: an explicit directory names one: fixed (the path is part of what makes
+#: a cache hit), inside the checkout, and gitignored.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    '.xla_cache')
 
-    Compiled executables for identical programs are reused across
-    processes — a serving fleet pays each pipeline's backend compile once
-    per cache, not once per process.  Call before the first jit execution.
+
+def enable_compilation_cache(directory=None, min_compile_time_secs=0.0):
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, always wins and no other
+    directory is set.  Otherwise the cache goes to ``directory``, or to
+    :data:`DEFAULT_CACHE_DIR` when that is None.  Compiled executables
+    for identical programs are reused across processes — a serving fleet
+    pays each pipeline's backend compile once per cache, not once per
+    process.  Call before the first jit execution.
     """
+    directory = (os.environ.get('JAX_COMPILATION_CACHE_DIR') or directory
+                 or DEFAULT_CACHE_DIR)
     jax.config.update('jax_compilation_cache_dir', str(directory))
     jax.config.update('jax_persistent_cache_min_compile_time_secs',
                       float(min_compile_time_secs))

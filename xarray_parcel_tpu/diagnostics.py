@@ -1,6 +1,6 @@
 """Scalar convection diagnostics.
 
-TPU-native equivalents of reference: modules/parcel_functions.py:1722-1870,
+Vectorised equivalents of reference: modules/parcel_functions.py:1722-1870,
 2102-2306 and :364-445 — lifted index, deep convective index, lapse rate,
 isobar temperature, freezing/melting level heights, wet-bulb temperature
 (exact and fast), bulk wind shear and the significant hail parameter.
@@ -82,7 +82,7 @@ def wet_bulb_temperature(pressure, temperature, dewpoint, tables=None,
 
     Default backend is direct RK4 integration (the LCL sits a short
     |dln p| above each point, so the integration is exact, elementwise and
-    gather-free — faster on TPU than the pointwise table lookup the
+    gather-free — cheaper than the pointwise table lookup the
     reference uses; pass ``moist_lapse=adiabat.moist_lapse`` for the
     table-faithful path).  The table envelope's NaN contract is preserved
     either way: out-of-model states give NaN, never extrapolation."""

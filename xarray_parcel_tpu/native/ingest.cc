@@ -1,6 +1,6 @@
 // Native host-side ingest runtime for xarray_parcel_tpu.
 //
-// The TPU compute path (JAX/XLA/Pallas) starts at device_put; everything in
+// The accelerator compute path (JAX/XLA) starts at device_put; everything in
 // front of it — validating the reference's data invariants, repacking
 // float64 xarray buffers to float32 feed arrays, moving the vertical dim to
 // the trailing axis, compacting leading NaNs — is host-side, bandwidth-bound
@@ -86,7 +86,7 @@ void xpt_validate_columns_f64(const double* p, int64_t n_cols, int64_t L,
 }
 
 // Parallel float64 -> float32 conversion (xarray buffers are commonly f64;
-// the TPU feed is f32).
+// the device feed is f32).
 void xpt_repack_f64_to_f32(const double* src, float* dst, int64_t n) {
   parallel_for(n, [=](int64_t lo, int64_t hi) {
     for (int64_t i = lo; i < hi; ++i) dst[i] = static_cast<float>(src[i]);

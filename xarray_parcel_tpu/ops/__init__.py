@@ -1,4 +1,4 @@
-"""Generic vertical-column array ops (the reference's L2 layer, TPU-native).
+"""Generic vertical-column array ops (the reference's L2 layer, vectorised).
 
 All ops act along the last axis (the vertical level axis), are fixed-shape,
 NaN-aware, and jit/vmap-safe.

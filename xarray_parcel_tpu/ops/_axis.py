@@ -2,10 +2,7 @@
 
 Every vertical op in this package operates along a level axis that is either
 -1 (the library-wide default: arrays are (…, L), per-column scalars (…)) or
-0 (the fused kernel's columns-on-lanes layout: arrays are (L, TB) blocks with
-columns on the TPU lane axis — measured ~1.7x faster than rows-on-sublanes
-for the kernel's op mix, because L=91 on the lane axis pads every vector op
-to 128 lanes while 91 sublanes pad only to 96).
+0 (level-major arrays (L, …)).
 
 With ``axis == 0`` a per-column scalar of shape (…) broadcasts natively
 against a level-carrying (L, …) array, so scalar expansion is the identity;

@@ -1,6 +1,6 @@
 """Trapezoidal vertical integration and zero-crossing rectangle areas.
 
-TPU-native reformulation of the reference's ``trapz`` and
+Vectorised reformulation of the reference's ``trapz`` and
 ``trap_around_zeros`` (reference: modules/parcel_functions.py:164-206,
 1200-1289), used by the CAPE/CIN integrator: the trapezoid sum covers whole
 gaps, and rectangle areas are added around every zero crossing of the
@@ -57,7 +57,7 @@ def select_areas(areas, valid, mask=None, only_positive=False,
 def trapz(y, x, mask=None, only_positive=False, only_negative=False,
           axis=-1):
     """NaN-skipping trapezoidal integral of ``y`` against ``x`` along the
-    level axis (-1 by default, 0 for the kernel's columns-on-lanes layout).
+    level axis (-1 by default, 0 for level-major arrays).
 
     ``mask`` (…, L-1) selects which gaps contribute; ``only_positive`` /
     ``only_negative`` keep only gaps whose area has that sign (used for the
@@ -94,8 +94,8 @@ def trap_around_zeros(x, y, log_x=True, start=0, intersections=None,
       * gap_mask: (…, L-1) boolean — False for gaps containing a crossing,
         for use as the trapz mask (no double counting).
 
-    ``axis``: level axis, -1 (default) or 0 (the kernel's columns-on-lanes
-    layout; ``start`` must then be 0).
+    ``axis``: level axis, -1 (default) or 0 (level-major arrays; ``start``
+    must then be 0).
     """
     assert axis == -1 or start == 0, 'start requires the default level axis'
     lo, hi = edge_slicers(axis)
@@ -114,9 +114,8 @@ def trap_around_zeros(x, y, log_x=True, start=0, intersections=None,
         assert start == 0, 'precomputed intersections require start=0'
         ints = intersections
     else:
-        # Thread the already-computed log(x) through — Mosaic does not CSE,
-        # so a duplicated per-level safe_log inside the fused kernel (and a
-        # fatter trace everywhere else) would be real work.
+        # Thread the already-computed log(x) through — a duplicated
+        # per-level safe_log would fatten every trace.
         ints = find_intersections(xs, ys, jnp.zeros_like(ys), log_x=log_x,
                                   log_x_values=xl if log_x else None,
                                   axis=axis)
@@ -139,8 +138,7 @@ def trap_around_zeros(x, y, log_x=True, start=0, intersections=None,
         px = jnp.where(keep, point_x, 0.0)
         dx = px - zx_safe
         y_safe = jnp.where(keep, point_y, 0.0)
-        # * 0.5, not / 2.0: bit-identical, and Mosaic does not
-        # canonicalise constant divisors (VPU divide is multi-cycle).
+        # * 0.5, not / 2.0: bit-identical, and a multiply is cheaper.
         area = (y_safe * 0.5) * jnp.abs(dx)
         pos = px - dx * 0.5
         return (jnp.where(keep, area, jnp.nan),
@@ -164,9 +162,7 @@ def trap_around_zeros(x, y, log_x=True, start=0, intersections=None,
         'x_to': pos + dx * 0.5,
     }
 
-    # Gaps before ``start`` always contribute to the trapezoid sum.  (Built
-    # by broadcast+concat, not jnp.ones(bool): an i8->i1 cast does not lower
-    # inside Pallas kernels.)
+    # Gaps before ``start`` always contribute to the trapezoid sum.
     if start:
         full = jnp.broadcast_shapes(x.shape, y.shape)
         lead = jnp.broadcast_to(jnp.asarray(True), full[:-1] + (start,))

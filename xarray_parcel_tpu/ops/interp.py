@@ -1,6 +1,6 @@
 """Vertical interpolation primitives (level axis = -1).
 
-Replaces, TPU-natively, two components of the reference:
+Replaces, vectorised, two components of the reference:
 
 * ``linear_interp`` / ``log_interp`` — duplicate-aware single-target
   interpolation along the vertical axis
@@ -34,9 +34,9 @@ def interp_many(xs, coords, at, extrapolate=False, log=False,
     ``linear_interp`` exactly.  Returns the same container type.
     ``log_coords``: optional precomputed ``log(coords)`` (hot-path threading;
     only used when ``log``).
-    ``axis``: level axis, -1 (default, arrays (…, L)) or 0 (arrays (L, …) —
-    the fused kernel's columns-on-lanes layout; per-column scalars then
-    broadcast against level-carrying arrays with no expansion).
+    ``axis``: level axis, -1 (default, arrays (…, L)) or 0 (arrays (L, …);
+    per-column scalars then broadcast against level-carrying arrays with
+    no expansion).
     """
     ex = _expander(axis)
     if log:
@@ -110,8 +110,8 @@ def interp1d(at, xp, fp):
 
     ``at``: query points (…, M); ``xp``: monotonically increasing knots
     (…, N); ``fp``: knot values (…, N).  Out-of-range queries clamp to the end
-    values (np.interp default), NaN queries give NaN.  This is the TPU
-    equivalent of the reference's numba gufunc
+    values (np.interp default), NaN queries give NaN.  This is the
+    vectorised equivalent of the reference's numba gufunc
     (reference: modules/parcel_functions.py:23-37, consumed at :585-592).
     """
     import jax

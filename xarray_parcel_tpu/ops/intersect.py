@@ -1,6 +1,6 @@
 """Piecewise-linear curve intersection finder (level axis = -1).
 
-TPU-native reformulation of the reference's ``find_intersections``
+Vectorised reformulation of the reference's ``find_intersections``
 (reference: modules/parcel_functions.py:992-1064).  The reference builds the
 crossing set with xarray shift/concat index gymnastics; here each potential
 crossing lives in gap k (between levels k and k+1), giving fixed-shape
@@ -31,8 +31,8 @@ def find_intersections(x, a, b, log_x=False, log_x_values=None,
     for consumers that only compare positions (lfc_el / cape_cin_base with
     ``intersections_in_log=True``).
 
-    ``axis``: level axis, -1 (default) or 0 (fused kernel's columns-on-lanes
-    layout); gap entry k then lives at index k of that axis.
+    ``axis``: level axis, -1 (default) or 0 (level-major arrays); gap entry
+    k then lives at index k of that axis.
     """
     lo, hi = edge_slicers(axis)
     if log_x:

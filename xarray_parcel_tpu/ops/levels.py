@@ -47,11 +47,11 @@ def insert_level(fields, level, coord='pressure', lead=None, axis=-1):
     Columns may carry *leading* NaNs (a masked sub-parcel prefix, as produced
     by the parcel-subsetting wrappers): the insertion slot is offset past
     them, so the spliced column keeps its NaN prefix and stays sorted.
-    ``lead`` optionally supplies that per-column leading-NaN count (argmax
-    does not lower inside Pallas kernels; the fused path precomputes it).
+    ``lead`` optionally supplies that per-column leading-NaN count (the
+    fused path computes it once and shares it with the LFC search).
 
-    ``axis``: level axis, -1 (default) or 0 (fused kernel's columns-on-lanes
-    layout — arrays (L, TB), per-column values (TB,)).
+    ``axis``: level axis, -1 (default) or 0 (level-major arrays (L, B),
+    per-column values (B,)).
     """
     ex = expander(axis)
     fields = _broadcast_fields({k: fields[k] for k in level}, coord)
@@ -68,8 +68,7 @@ def insert_level(fields, level, coord='pressure', lead=None, axis=-1):
     # lead + count: an interior NaN-pressure slot between that level and
     # here would shift the count short and splice the new level below a
     # larger coordinate — an unsorted column whose area integration double
-    # counts the inverted span).  Float iota arithmetic: int reductions are
-    # shakier than f32 under Mosaic.  Falls back to ``lead`` when no valid
+    # counts the inverted span).  Falls back to ``lead`` when no valid
     # level is >= (inserting above a leading-NaN prefix keeps the prefix).
     ii = jax.lax.broadcasted_iota(jnp.int32, p.shape, dim)
     valid_ge = p_filled >= ex(pl)
@@ -78,14 +77,13 @@ def insert_level(fields, level, coord='pressure', lead=None, axis=-1):
     idx = jnp.maximum(idx, lead)                          # (…,) in [0, L]
 
     out_shape = p.shape[:dim] + (L + 1,) + p.shape[dim + 1:]
-    # 2-D iota (1-D jnp.arange does not lower inside Pallas kernels).
     j = jax.lax.broadcasted_iota(jnp.int32, out_shape, dim)
     below = j < ex(idx)                                         # (…, L+1)
     at = j == ex(idx)
 
     # out[j] = v[j] below the insertion, the level at it, v[j-1] above — two
-    # static shifts + selects, no gather (TPU gathers are slow; this is the
-    # whole trick that makes the splice free under XLA fusion).
+    # static shifts + selects, no gather (this is the whole trick that
+    # makes the splice free under XLA fusion).
     out = {}
     nan = jnp.full(p.shape[:dim] + (1,) + p.shape[dim + 1:], jnp.nan,
                    p.dtype)
@@ -130,7 +128,7 @@ def compact_left(fields, key):
     lead = jnp.argmax(valid, axis=-1)                  # 0 if all-NaN (harmless)
 
     # Variable left-shift by binary decomposition: log2(L) static shifts with
-    # per-column selects instead of a per-element gather (slow on TPU).
+    # per-column selects instead of a per-element gather.
     out = {k: arr for k, arr in fields.items()}
     shift, bit = lead, 0
     while (1 << bit) < L:

@@ -1,5 +1,5 @@
-"""Mesh data-parallelism over grid columns (TPU ICI/DCN; the reference's
-dask-chunk role) plus multi-host initialisation helpers."""
+"""Mesh data-parallelism over grid columns (the cards of a host; the
+reference's dask-chunk role) plus multi-host initialisation helpers."""
 
 from .stream import stream_map
 from .chunked import chunked, scan_map

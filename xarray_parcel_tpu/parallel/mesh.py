@@ -2,9 +2,10 @@
 
 The reference's only parallelism is dask chunk parallelism over lat/lon/time
 (reference: modules/parcel_functions.py:561-592, :667 and the LocalCluster
-setup in its notebooks).  The TPU-native mapping: columns are independent, so
-batch axes shard over a ``jax.sharding.Mesh`` (ICI within a slice, DCN across
-hosts) while the level axis stays whole on-chip; XLA inserts no collectives
+setup in its notebooks).  The JAX mapping: columns are independent, so
+batch axes shard over a ``jax.sharding.Mesh`` (the cards of a host, or
+hosts joined by ``jax.distributed``) while the level axis stays whole on
+each device; XLA inserts no collectives
 in the pipeline itself — communication appears only in explicit global
 reductions (validation statistics), done with ``psum``/``pmax`` under
 ``shard_map``.
@@ -23,13 +24,14 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def distributed_init(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """Multi-host initialisation for pod-slice runs.
+    """Multi-host initialisation for multi-process runs.
 
     Thin wrapper over ``jax.distributed.initialize`` (auto-detecting under
-    standard TPU pod environments) — the launch-side counterpart of the
-    reference's dask LocalCluster/Client setup (its notebooks' cell 3).
+    cluster launchers that export the coordinator) — the launch-side
+    counterpart of the reference's dask LocalCluster/Client setup (its
+    notebooks' cell 3).
     Call once per host before ``make_mesh()``; afterwards ``jax.devices()``
-    spans the slice and batch sharding rides ICI/DCN transparently.
+    spans every process's devices and batch sharding is transparent.
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

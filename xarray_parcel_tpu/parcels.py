@@ -1,7 +1,7 @@
 """Parcel selection: mixed-layer and most-unstable parcels, plus the
 corresponding CAPE/CIN wrappers.
 
-TPU-native equivalents of reference: modules/parcel_functions.py:102-289
+Vectorised equivalents of reference: modules/parcel_functions.py:102-289
 (layer mixing, most-unstable search) and :1517-1697 (subsetting wrappers).
 The reference's variable-length subsetting (``dropna`` + ``shift_out_nans``)
 becomes fixed-shape left-compaction: columns keep a static level count with

@@ -1,6 +1,6 @@
 """Batch diagnostic pipelines — the "run everything on a dataset" layer.
 
-TPU-native equivalents of reference: modules/parcel_functions.py:1872-2100
+Vectorised equivalents of reference: modules/parcel_functions.py:1872-2100
 (``conv_properties`` / ``min_conv_properties``) and :2323-2407
 (``storm_proxies``).  One jittable pure function produces the full ~25
 variable set for every column at once; under jit the whole pipeline is a
@@ -117,10 +117,10 @@ def conv_properties(dat, ignore_nans=False, tables=None, moist_lapse=None,
     return annotate(out) if with_attrs else out
 
 
-def _fused_solve(fields, parcel, tables, in_kernel_li, layout):
+def _fused_solve(fields, parcel, tables, in_kernel_li):
     """One fused CAPE/CIN solve + lifted index for an arbitrary parcel —
-    in-kernel LI by default, else LI interpolated from the kernel's
-    profile tracks in XLA.  Shared by the fused pipelines."""
+    LI inside the fused solve by default, else LI interpolated from the
+    solve's profile tracks.  Shared by the fused pipelines."""
     from . import fused as _fused
     res, _ = _fused.fused_cape_cin(
         fields['pressure'], fields['temperature'], fields['dewpoint'],
@@ -128,7 +128,7 @@ def _fused_solve(fields, parcel, tables, in_kernel_li, layout):
         parcel_temperature=parcel['temperature'],
         parcel_dewpoint=parcel['dewpoint'],
         tables=tables, with_lifted_index=in_kernel_li,
-        with_profile=not in_kernel_li, layout=layout)
+        with_profile=not in_kernel_li)
     if not in_kernel_li:
         res['lifted_index'] = diag.lifted_index(res.pop('profile'))[
             'lifted_index']
@@ -137,17 +137,17 @@ def _fused_solve(fields, parcel, tables, in_kernel_li, layout):
 
 def conv_properties_fused(dat, ignore_nans=False, tables=None,
                           with_attrs=False, in_kernel_li=True,
-                          layout='rows', mix_grow=False):
-    """``conv_properties`` on the fused-Pallas production path.
+                          mix_grow=False):
+    """``conv_properties`` on the fused production path.
 
-    Same variables, same semantics (the kernels reuse the same column
-    program); the three CAPE/CIN solves and their lifted indices run inside
-    fused kernels instead of materialising profiles — the deployment path
-    for dense grids.
+    Same variables, same semantics (the fused solve reuses the same column
+    ops); the three CAPE/CIN solves and their lifted indices run as fused
+    column programs instead of materialising profiles — the deployment
+    path for dense grids.
 
-    ``in_kernel_li``: compute the lifted index inside the kernel (shared
-    interpolation anchors, no profile materialisation); off, profile tracks
-    come out of the kernel and the LI interpolates them in XLA.
+    ``in_kernel_li``: compute the lifted index inside the fused solve
+    (shared interpolation anchors, no profile materialisation); off,
+    profile tracks come out of the solve and the LI interpolates them.
     ``mix_grow``: True re-enables the (L+1) insert_level splice for the
     mixed-layer environments (the slot-write default produces the same
     physical profile without the splice's shift network — an A/B knob).
@@ -164,7 +164,7 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None,
               jnp.isnan(t).any(-1) | jnp.isnan(q).any(-1))
 
     def solve(fields, parcel):
-        return _fused_solve(fields, parcel, tables, in_kernel_li, layout)
+        return _fused_solve(fields, parcel, tables, in_kernel_li)
 
     mu_fields, mu_parcel = from_most_unstable_parcel(p, t, dew, depth=250.0)
     mu = solve(mu_fields, mu_parcel)
@@ -255,15 +255,15 @@ def min_conv_properties(dat, tables=None, moist_lapse=None,
 
 
 def min_conv_properties_fused(dat, tables=None, with_attrs=False,
-                              in_kernel_li=True, layout='rows'):
-    """``min_conv_properties`` on the fused-Pallas production path
+                              in_kernel_li=True):
+    """``min_conv_properties`` on the fused production path
     (reference: modules/parcel_functions.py:1872-1949).
 
     Same variables, same semantics as the modular reduced pipeline
     (including its lack of a valid-column mask — NaN columns propagate
-    through the kernel's NaN contract); the mixed-100 CAPE/CIN solve and
-    its lifted index run inside one fused kernel instead of materialising
-    the parcel profile.
+    through the solve's NaN contract); the mixed-100 CAPE/CIN solve and
+    its lifted index run as one fused column program instead of
+    materialising the parcel profile.
     """
     from .parcels import mix_layer
 
@@ -273,8 +273,7 @@ def min_conv_properties_fused(dat, tables=None, with_attrs=False,
     dew = thermo.dewpoint_from_specific_humidity(p, t, q)
 
     m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0, grow=False)
-    res = _fused_solve(m100_fields, m100_parcel, tables, in_kernel_li,
-                       layout)
+    res = _fused_solve(m100_fields, m100_parcel, tables, in_kernel_li)
 
     height = jnp.asarray(dat['height_asl'])
     out = {'mixed_100_cape': res['cape'], 'mixed_100_cin': res['cin'],

@@ -1,6 +1,6 @@
 """Lifted-parcel temperature profiles (dry below LCL, moist above).
 
-TPU-native equivalents of the reference's profile builders
+Vectorised equivalents of the reference's profile builders
 (reference: modules/parcel_functions.py:712-931): fixed-shape columns with
 the LCL spliced in as an extra level via the static-shape ``insert_level``
 gather, virtual-temperature track computed alongside.

@@ -8,8 +8,9 @@ truths in the reference's modules/unit_tests.py depend on them — notably the
 *approximate* ``mixing_ratio_from_relative_humidity``, which changed in later
 MetPy versions; see the reference's environment_changes_eval.ipynb).
 
-All functions are elementwise, dtype-polymorphic (fp32 on TPU, fp64 under
-``jax_enable_x64`` for validation), NaN-transparent, and safe under jit/vmap.
+All functions are elementwise, dtype-polymorphic (fp32 in production,
+fp64 under ``jax_enable_x64`` for validation), NaN-transparent, and safe
+under jit/vmap.
 Units follow the reference convention: pressure in hPa, temperature in K,
 mixing ratio in kg/kg.
 """
